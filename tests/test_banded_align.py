@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 
 from volcanosv_tpu.ops.banded_align import (
-    Scores, banded_align_scan, edit_distance_batch, full_affine_score_np,
+    Scores, banded_align_scan, edit_distance_batch_auto, full_affine_score_np,
     traceback_cigar,
 )
 from volcanosv_tpu.ops.pack import encode_seq, pad_codes
@@ -148,7 +148,7 @@ def test_edit_distance_matches_naive(rng):
         qs.append(encode_seq(q)); ts.append(encode_seq(t))
     q_pad, qlen = pad_codes(qs, pad_to=128)
     t_pad, tlen = pad_codes(ts, pad_to=128)
-    d = np.asarray(edit_distance_batch(q_pad, t_pad, qlen, tlen, W=128))
+    d = np.asarray(edit_distance_batch_auto(q_pad, t_pad, qlen, tlen, W=128))
     for b, (q, t) in enumerate(strs):
         assert d[b] == lev(q, t)
 

@@ -1,6 +1,7 @@
 """Device-side traceback walk (_walk_device) vs the host walk, on the CPU
-backend — the TPU dispatch path in banded_align_cigars uses this state
-machine, so its logic is pinned here against traceback_cigar."""
+backend — banded_align_cigars walks every traceback with this state
+machine (or the GPU walk kernel that mirrors it), so its logic is pinned
+here against traceback_cigar."""
 import numpy as np
 import jax.numpy as jnp
 
@@ -40,10 +41,9 @@ def test_walk_device_matches_host_walk(rng):
     q, t, qlen, tlen = _random_pairs(rng, B, M, W)
     _s, tb, _e = banded_align_scan(q, t, qlen, tlen, W=W, d_lo=d_lo,
                                    scores=Scores())
-    tb_np = np.asarray(tb)                       # (M, B, W) scan layout
-    tb_mwb = jnp.asarray(tb_np.transpose(0, 2, 1))   # → (M, W, B)
+    tb_np = np.asarray(tb)                       # (M, B, W)
     n_steps = 2 * M + 3 * W + 10
-    ops, done = _walk_device(tb_mwb, jnp.asarray(qlen),
+    ops, done = _walk_device(tb, jnp.asarray(qlen),
                              jnp.asarray(tlen), d_lo, n_steps)
     ops = np.asarray(ops)
     assert bool(np.all(np.asarray(done)))
@@ -60,11 +60,10 @@ def test_walk_device_packed_matches_unpacked(rng):
     q, t, qlen, tlen = _random_pairs(rng, B, M, W)
     _s, tb, _e = banded_align_scan(q, t, qlen, tlen, W=W, d_lo=d_lo,
                                    scores=Scores())
-    tb_mwb = jnp.asarray(np.asarray(tb).transpose(0, 2, 1))
     n_steps = 2 * M + 3 * W + 12            # multiple of 4
-    plain = np.asarray(_walk_device(tb_mwb, jnp.asarray(qlen),
+    plain = np.asarray(_walk_device(tb, jnp.asarray(qlen),
                                     jnp.asarray(tlen), d_lo, n_steps)[0])
-    packed = np.asarray(_walk_device(tb_mwb, jnp.asarray(qlen),
+    packed = np.asarray(_walk_device(tb, jnp.asarray(qlen),
                                      jnp.asarray(tlen), d_lo, n_steps,
                                      pack=True)[0])
     assert packed.shape == (n_steps // 4, B)
@@ -76,8 +75,7 @@ def test_walk_device_consumes_exact_lengths(rng):
     q, t, qlen, tlen = _random_pairs(rng, B, M, W)
     _s, tb, _e = banded_align_scan(q, t, qlen, tlen, W=W, d_lo=d_lo,
                                    scores=Scores())
-    tb_mwb = jnp.asarray(np.asarray(tb).transpose(0, 2, 1))
-    ops = np.asarray(_walk_device(tb_mwb, jnp.asarray(qlen),
+    ops = np.asarray(_walk_device(tb, jnp.asarray(qlen),
                                   jnp.asarray(tlen), d_lo,
                                   2 * M + 3 * W + 10)[0])
     for b in range(B):

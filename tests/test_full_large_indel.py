@@ -9,7 +9,7 @@ from volcanosv_tpu.config import AlignConfig, PipelineConfig
 from volcanosv_tpu.sim import (contigs_from_haplotypes, implant_svs,
                                random_genome, simulate_reads)
 from volcanosv_tpu.vc.large_indel import call_chromosome
-from tests.test_large_indel import truvari_score
+from test_large_indel import truvari_score
 
 
 @pytest.fixture(scope="module")

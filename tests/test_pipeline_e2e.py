@@ -12,7 +12,7 @@ from volcanosv_tpu.pipeline import assemble_chromosome
 from volcanosv_tpu.sim import (implant_snps, implant_svs, random_genome,
                                simulate_reads)
 from volcanosv_tpu.vc.large_indel import call_chromosome
-from tests.test_large_indel import truvari_score
+from test_large_indel import truvari_score
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,7 @@ exercises the pipeline's actual multi-host path end to end:
     different data, exactly what chromosome sharding produces), validated
     against the union median
   * `build_sharded_align_step` — one sharded DP step over the global mesh
-    (ICI/DCN collectives in the real deployment)
+    (NVLink / network collectives in the real deployment)
   * **the real vc-large-indel driver** — both processes run
     `cli vc-large-indel` into one shared out_dir: query-sharded alignment,
     shared-FS record exchange, global-median collective, per-host part
@@ -21,7 +21,7 @@ exercises the pipeline's actual multi-host path end to end:
 
 Writes MULTIHOST.json with per-host shard ownership, the cross-host median
 check, step timings, and the pipeline byte-identity verdict.  Runnable
-anywhere (no TPU pod needed):
+anywhere (no multi-GPU host needed):
 
   python tools/multihost.py            # parent: spawns 2 workers
   python tools/multihost.py --n 4      # 4 processes

@@ -3,7 +3,7 @@
 Measures end-to-end Aligner.align throughput (sketch → chain → banded-DP
 window batches → CIGARs) with the window batches shard_map'ed over the
 device mesh (parallel.mesh.set_active_mesh → ops.banded_align.
-_sharded_cigars_dispatch) at several device counts, and writes
+_sharded_align_walk) at several device counts, and writes
 SCALING.json: {n_devices, reads_per_s, efficiency_vs_1dev}.  This is the
 engine's real DP path, not a bespoke step (VERDICT round-2 weak #2).
 
@@ -12,7 +12,7 @@ Each device count runs in a fresh subprocess with
 so it is runnable anywhere (SURVEY.md §4's CPU-mesh strategy).  NOTE: on a
 CPU host the N virtual devices SHARE the physical cores — wall-clock
 efficiency there reflects host-core count, not mesh scalability; on real
-multi-chip hardware the same harness yields the true ICI scaling curve
+multi-GPU hardware the same harness yields the real scaling curve
 (BASELINE target: ≥80% linear at 2 hosts).  host_cores is recorded so the
 reader can tell which regime a number came from.
 
@@ -102,7 +102,7 @@ def main() -> None:
         "host_cores": os.cpu_count(),
         "note": ("virtual CPU devices share host cores; efficiency here is "
                  "bounded by host_cores/n_devices — on real multi-chip the "
-                 "same harness measures true ICI scaling"),
+                 "same harness measures the real scaling"),
         "rows": rows,
     }
     with open(args.out, "w") as fh:

@@ -5,7 +5,7 @@ joblib fan-out of one assembler process per phase-block haplotype, contig
 renaming to <hap_name>_<n> (reformat_fasta :37-45), resumable via
 log.txt/fail_log.txt skip lists (:530-547), final concat (:565-566).
 
-TPU-first batching (SURVEY.md §2.3 'pad/bucket phase blocks, vmap over
+Accelerator batching (SURVEY.md §2.3 'pad/bucket phase blocks, vmap over
 blocks'): instead of one assembler invocation per hap group, the farm runs
 
   1. ONE shared minimizer index + chain pass over the pooled reads of

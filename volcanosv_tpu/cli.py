@@ -461,7 +461,7 @@ def _pipeline_mesh():
     """The (genome, data) mesh the drivers run collectives over — None when
     only one device is visible (serial fallback path).  Installing it as
     the ACTIVE mesh also routes the aligner's DP window batches through
-    the shard_map path (ops.banded_align._sharded_cigars_dispatch)."""
+    the shard_map path (ops.banded_align._sharded_align_walk)."""
     import jax
 
     from .parallel import make_mesh
@@ -825,7 +825,7 @@ def _add_common(p, contig=False, reads=True):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="volcanosv_tpu",
-        description="TPU-native diploid SV engine (VolcanoSV capabilities)")
+        description="GPU-accelerated diploid SV engine (VolcanoSV capabilities)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("sim", help="synthesize test data")
@@ -914,26 +914,7 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _enable_compile_cache() -> None:
-    """Persistent XLA compilation cache for the production path.
-
-    Round-3 bench: the first dp_windows batch took 1204s of compiles vs
-    0.16s warm — tests pinned a cache (conftest) but the CLI did not.  A
-    disk cache drops the cold start to cache-deserialize time on backends
-    that support it; harmless where unsupported."""
-    try:
-        import jax
-        d = os.environ.get("VOLCANOSV_JAX_CACHE",
-                           os.path.expanduser("~/.cache/volcanosv_jax"))
-        os.makedirs(d, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", d)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:                      # never fail the CLI over a cache
-        pass
-
-
 def main(argv: list[str] | None = None) -> int:
-    _enable_compile_cache()
     args = build_parser().parse_args(argv)
     trace_dir = getattr(args, "profile_trace", None)
     if trace_dir:

@@ -3,7 +3,7 @@
 The reference vendors ~100k LoC of C/C++ assembler/caller code (SURVEY.md
 §2.2); our native surface is deliberately small — only the host-side glue
 that is inherently sequential (anchor chaining backtrack, BGZF inflate)
-lives in C++; all throughput compute runs on the TPU.
+lives in C++; the throughput compute runs on the accelerator.
 """
 from __future__ import annotations
 
@@ -32,10 +32,19 @@ def build_native(force: bool = False) -> str | None:
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
            *srcs, "-o", out, "-lz", "-lpthread"]
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
         return out
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return None
+    except FileNotFoundError as e:
+        _log().warning("native build skipped, no compiler: %s", e)
+    except subprocess.CalledProcessError as e:
+        _log().warning("native build failed (g++ exit %d):\n%s",
+                       e.returncode, e.stderr)
+    return None
+
+
+def _log():
+    from ..utils.logging import get_logger
+    return get_logger("native")
 
 
 _lib = None

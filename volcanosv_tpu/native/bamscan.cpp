@@ -1,7 +1,7 @@
 // Native BAM scanner: parallel BGZF inflate + columnar record extraction.
 //
 // The reference delegates all BAM decode to htslib/samtools (SURVEY.md §2.2
-// 'samtools/bcftools', 'htsbox'); this is the TPU-build's native data-loader
+// 'samtools/bcftools', 'htsbox'); this is the engine's native data-loader
 // equivalent — it feeds read batches to the host pipeline without the
 // per-record Python cost of io/bam.py (which stays as the general,
 // tag-aware fallback).

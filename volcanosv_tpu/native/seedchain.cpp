@@ -11,7 +11,7 @@
 //
 // The reference gets all of this from minimap2's C internals
 // (Raw_variant_call.py:46-58); this is its host-side counterpart — the
-// banded extension DP itself stays on the TPU.
+// banded extension DP itself runs on the device.
 #include <algorithm>
 #include <cstdint>
 #include <cstdlib>

@@ -4,7 +4,7 @@
 // masking.  O(L) via a monotonic deque (the numpy path is O(L·w)).
 //
 // The reference gets this from minimap2's C sketch (SURVEY.md §2.2); this
-// is the host-side seeding kernel of the TPU build's aligner.
+// is the host-side seeding kernel of the engine's aligner.
 #include <cstdint>
 #include <vector>
 

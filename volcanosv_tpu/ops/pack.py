@@ -3,7 +3,7 @@
 Generalizes the reference's one-hot k-mer trick (HashSeq.py:30-38
 ONE_HOT_MAP {A:00, C:01, G:10, T:11}) into the framework-wide sequence
 representation: int8 codes A=0 C=1 G=2 T=3, N/other=4.  All device kernels
-consume these codes; strings never reach the TPU.
+consume these codes; strings never reach the device.
 """
 from __future__ import annotations
 
@@ -41,8 +41,8 @@ def revcomp_seq(seq: str) -> str:
 
 def pad_codes(seqs: list[np.ndarray], pad_to: int | None = None,
               pad_value: int = CODE_N) -> tuple[np.ndarray, np.ndarray]:
-    """Stack ragged code arrays into (B, L) + lengths.  L rounded up to 128
-    (TPU lane width) unless pad_to given."""
+    """Stack ragged code arrays into (B, L) + lengths.  L rounded up to a
+    multiple of 128 (fewer distinct compiled shapes) unless pad_to given."""
     lens = np.array([len(s) for s in seqs], dtype=np.int32)
     if pad_to is None:
         m = int(lens.max()) if len(lens) else 1

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.banded_align import Scores, banded_align_scan
+from ..ops.banded_align import Scores, dp_kernel
 from ..ops.kmer import count_kmers_dense, kmer_hashes
 from .mesh import AXES
 
@@ -30,7 +30,7 @@ from .mesh import AXES
 def sharded_align_step(q, t, qlen, tlen, *, W: int, d_lo: int, k: int,
                        scores: Scores = Scores()):
     """Per-shard body. q/t: (b, M)/(b, N) local batch of DP windows."""
-    score, _, end_j = banded_align_scan(
+    score, _, end_j, _ = dp_kernel().align(
         q, t, qlen, tlen, W=W, d_lo=d_lo, scores=scores, with_traceback=False)
     # global k-mer count DB: local dense table + psum over the whole mesh
     h, valid = kmer_hashes(q, k)

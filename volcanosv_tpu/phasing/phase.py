@@ -1,5 +1,5 @@
 """Read-backed phasing: MEC (minimum error correction) via alternating
-majority votes — the TPU-shaped core of what longshot/HapCUT2 do.
+majority votes — a batched, fixed-shape core of what longshot/HapCUT2 do.
 
 Model: each het SNP s has phase h[s] ∈ {+1,-1} (which haplotype carries the
 alt allele); each read r has assignment a[r] ∈ {+1,-1}.  Observation

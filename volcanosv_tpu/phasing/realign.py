@@ -8,7 +8,7 @@ ratio.  Raw mismatch pileups systematically miscall candidates adjacent to
 indels in noisy reads — the aligner places the indel arbitrarily within a
 homopolymer and the mismatch column shifts.
 
-TPU-shaped design: all (site × covering-read) pairs are padded to fixed
+Batched design: all (site × covering-read) pairs are padded to fixed
 (B, R) read-segment / (B, W) haplotype-window batches and scored by ONE
 jitted affine-gap Viterbi kernel in log space — a lax.scan over read rows
 with the delete-chain linear recurrence solved by a running prefix-max

@@ -9,7 +9,7 @@ whose states classify each window as **err** (~0× coverage), **dup**
 components drive SD re-assembly (`General_Assembly_Workflow_SD.py` →
 `Replace_Collapsed_Contigs.py`).
 
-TPU-first: the forward-backward/Viterbi recursions are `lax.scan` over
+Batched design: the forward-backward/Viterbi recursions are `lax.scan` over
 windows, vmapped over a padded batch of contigs — one compiled program for
 the whole assembly instead of per-contig C processes under cromwell.
 """

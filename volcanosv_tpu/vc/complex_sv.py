@@ -6,7 +6,7 @@ segment-pair typing, SVIM_COMBINE.py hap pairing) + DUP recovery from INS
 calls (align_ins2ref.py:82-131) + TRA breakend clustering (filter_tra.py:
 70-116) + INV merge & read-orientation support filter (filter_inv.py:57-190).
 
-TPU-first notes: candidate typing is a host pass over the aligner's segment
+Design notes: candidate typing is a host pass over the aligner's segment
 table (tiny); the compute-dense parts — the INS-seq→ref realignment used for
 DUP recovery and the read-orientation scan for INV support — ride the
 batched banded-DP aligner and vectorized interval ops.

@@ -5,7 +5,7 @@ ref: remove_redundancy.py — pairwise links within a distance window
 DEL: dist ≤ 3000, size-sim ≥ 0.1, reciprocal overlap ≥ 0), connected
 components, keep the longest SV per component, annotate CollapseId.
 
-TPU mapping: the edlib edit-distance calls (remove_redundancy.py:75-81)
+Device mapping: the edlib edit-distance calls (remove_redundancy.py:75-81)
 become one batched banded-DP launch over all candidate INS pairs
 (ops.banded_align with unit costs); components via union-find on host
 (replaces networkx).

@@ -6,7 +6,7 @@ htsbox `pileup -q5 -ecf ref hp1.bam hp2.bam -w 20` (pileup.c:126-176) +
 + 2–49bp awk size filter + 15-mer read-support FP filter
 (check_reads_kmer_support.py, defaults -k 15 -rt 0.3 -ms 5).
 
-Design differences (TPU-first, not a port): the haplotype contigs are
+Design differences (not a port): the haplotype contigs are
 *consensus* sequences, so per-column pileup over one haploid BAM reduces to
 reading variants straight off each contig→ref alignment CIGAR — a vectorized
 O(aligned-bases) numpy pass per contig instead of htsbox's per-column C
